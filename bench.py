@@ -19,9 +19,8 @@ os.environ.setdefault("XLA_FLAGS", "")
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/cice4_tpu_xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from cice4_tpu.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
 import jax.numpy as jnp
 

@@ -19,6 +19,9 @@ def _load_config(args):
     elif args.preset == "gx1":
         from cice4_tpu.config import gx1_config
         cfg = gx1_config()
+    elif args.preset == "gx1-size":
+        from cice4_tpu.config import gx1_size_config
+        cfg = gx1_size_config()
     elif args.preset == "col":
         from cice4_tpu.config import col_config
         cfg = col_config()
@@ -42,12 +45,12 @@ def _load_config(args):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="cice4_tpu",
-                                description="TPU-native sea-ice model")
+                                description="JAX sea-ice model")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     runp = sub.add_parser("run", help="run the model")
     runp.add_argument("config", nargs="?", help="TOML config file")
-    runp.add_argument("--preset", choices=["gx3", "gx1", "col"],
+    runp.add_argument("--preset", choices=["gx3", "gx1", "gx1-size", "col"],
                       default=None)
     runp.add_argument("--steps", type=int, default=None)
     runp.add_argument("--f64", action="store_true")
@@ -65,7 +68,10 @@ def main(argv=None):
 
     import jax.numpy as jnp
 
+    from cice4_tpu.compile_cache import enable_compile_cache
     from cice4_tpu.driver import IceModelRun
+
+    enable_compile_cache()
 
     cfg = _load_config(args)
     dtype = jnp.float64 if args.f64 else jnp.float32

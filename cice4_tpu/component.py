@@ -1,6 +1,6 @@
 """ESMF-style gridded-component wrapper around the model lifecycle.
 
-TPU-native equivalent of ``drivers/esmf/CICE_ComponentMod.F90:58-214``
+JAX equivalent of ``drivers/esmf/CICE_ComponentMod.F90:58-214``
 (`CICE_SetServices` registering `CICE_Initialize` / `CICE_Run` /
 `CICE_Finalize` entry points) plus the coupled run loops of
 ``drivers/esmf/CICE_RunMod.F90`` and ``drivers/access-cm/CICE_RunMod.F90``.

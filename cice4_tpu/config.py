@@ -79,10 +79,6 @@ class DynamicsConfig:
     Cstar: float = 20.0           # Hibler79 strength decay constant
     Cf: float = 17.0              # ratio of ridging work to PE change
     Cp: float = 0.5 * 9.80616 * (1026.0 - 917.0) * 917.0 / 1026.0  # PE coefficient
-    # TPU execution strategy: fuse the whole ndte-subcycle loop into one
-    # Pallas kernel with the working set resident in VMEM (single-chip,
-    # non-tripole only; jnp fallback otherwise)
-    use_pallas: bool = True
 
     def __post_init__(self):
         if self.yield_curve != "ellipse":
@@ -295,6 +291,13 @@ def gx1_config(data_dir: str = "/root/reference/input_templates/gx1") -> Config:
         grid=GridConfig(grid_type="latlon",
                         kmt_file=f"{data_dir}/global_gx1.kmt"),
     )
+
+
+def gx1_size_config() -> Config:
+    """gx1-size (320x384) cyclic/closed lat-lon grid with the land mask
+    the grid builder makes itself (ocean everywhere but the top and
+    bottom rows): the gx1 deployment's shape without its input files."""
+    return gx1_config().with_values(**{"grid.kmt_file": ""})
 
 
 def access_om_config(nx: int = 360, ny: int = 300) -> Config:

@@ -1,4 +1,4 @@
-"""Physical and numerical constants for the TPU sea-ice framework.
+"""Physical and numerical constants for the sea-ice framework.
 
 Mirrors the constant set of the reference model
 (``drivers/cice4/ice_constants.F90:35-217``) so that physics parity is

@@ -10,8 +10,9 @@ probes.
 
 All reductions are plain `jnp.sum` over the dense global fields — under
 sharding XLA lowers them to `psum` over the mesh (the reference's
-`global_sum`); on TPU the reduction order is deterministic by
-construction, giving the REPRODUCIBLE-mode property for free
+`global_sum`); a compiled program's reduction order is fixed, so a
+rerun of the same executable reproduces its sums bit for bit (the
+REPRODUCIBLE-mode property)
 (``mpi/ice_global_reductions.F90:200-230``).
 """
 

@@ -154,9 +154,9 @@ class IceModelRun:
                 # (init_mass_diags, ice_diagnostics.F90:853-927)
                 init_diag = self._initdiag(self.state)
             with self.timers("Step"):
-                self.state, fluxes = self._step(self.state, f,
-                                                jnp.asarray(cal.yday),
-                                                jnp.asarray(cal.sec))
+                self.state, fluxes = self._step(
+                    self.state, f, jnp.asarray(cal.yday, self.dtype),
+                    jnp.asarray(cal.sec, self.dtype))
             # abort-with-coordinates (guards.py): inspect the PREVIOUS
             # step's violation records — it has already completed, so
             # this costs no pipeline stall — then queue this step's

@@ -1,11 +1,11 @@
 """Model grid: geometry, metrics, masks, and staggered-grid transforms.
 
-TPU-native reworking of ``source/ice_grid.F90``.  Differences from the
+JAX reworking of ``source/ice_grid.F90``.  Differences from the
 reference:
 
 * no block decomposition and no ghost cells — every field is a dense
   global ``(ny, nx)`` array (the reference's ``(i, j)`` with i fastest
-  maps to our ``(y, x)`` with x as the minor/lane axis);
+  maps to our ``(y, x)`` with x as the minor, contiguous axis);
 * all metric derivation happens once at init in NumPy float64 (matching
   the reference's global-array computation in ``popgrid`` /
   ``primary_grid_lengths_HTN/HTE``, ``ice_grid.F90:1139-1296``), then is

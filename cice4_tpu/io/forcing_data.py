@@ -23,7 +23,7 @@ Equivalent of ``source/ice_forcing.F90`` (4269 LoC):
 File format is the reference's 'rda8' (direct-access big-endian
 real*8 records of the full grid, ``ice_read_write.F90:357-451``).
 
-Device/host split (TPU-first): record reads and bracketing live on the
+Device/host split: record reads and bracketing live on the
 host in NumPy (tiny 2D slabs, latency-insensitive); everything from
 interpolation onward is one jitted device function per dataset family.
 """

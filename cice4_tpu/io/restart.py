@@ -8,7 +8,7 @@ continuous run; a pointer file chains restarts for
 `runtype = 'continue'`.
 
 Storage is a single compressed ``.npz`` of the state pytree plus a JSON
-header (step index, model time, config fingerprint) — the TPU-native
+header (step index, model time, config fingerprint) — the
 replacement for the reference's sequence of big-endian Fortran records.
 Every leaf is gathered to host (`jax.device_get`); under sharding this
 is the analogue of the reference's `gather_global` per record.

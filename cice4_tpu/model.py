@@ -1,6 +1,6 @@
 """The model: one fully-jitted time step composing all physics.
 
-TPU-native equivalent of ``source/ice_step_mod.F90`` +
+JAX equivalent of ``source/ice_step_mod.F90`` +
 ``drivers/cice4/CICE_RunMod.F90 ice_step:164-242``.  The entire step —
 radiation, per-category vertical thermo, ITD conversions, EVP dynamics,
 transport, ridging, cleanup, slab ocean — is one traced program; XLA
@@ -287,6 +287,9 @@ def _step_therm1(model: Model, state: State, grid: Grid, f: Forcing,
     merged["fmelttn_ai"] = jnp.maximum(fx["fsurfn"] - fx["fcondtopn"],
                                        0.0) * w
     merged["vice_init"] = jnp.sum(vicen_init, axis=0)
+    # per-category, per-cell Newton iterations of the temperature solve
+    # (read by the column-physics probe; `ice_step` drops them)
+    merged["niter_cell"] = fx["niter_cell"]
     import os as _os
     if _os.environ.get("CICE4_DEBUG_THERM1"):
         merged["_dbg_therm1"] = {k: fx[k] for k in
@@ -510,6 +513,7 @@ def ice_step(model: Model, state: State, grid: Grid, f: Forcing,
         sw = _step_radiation(model, state, grid, f, yday, sec, dt)
     state, fluxes, init = _step_therm1(model, state, grid, f, sw, Tf,
                                        yday, dt)
+    del fluxes["niter_cell"]
     state, fluxes = _step_therm2(model, state, grid, fluxes, init, Tf, dt)
     # thermodynamic area/volume tendencies (init_history_therm,
     # ice_flux.F90:513-604; accumulated as daidtt/dvidtt in 1/s, m/s)

@@ -1,15 +1,16 @@
 """Elastic-viscous-plastic (EVP) sea-ice dynamics.
 
-TPU-native reworking of ``source/ice_dyn_evp.F90`` (Hunke & Dukowicz
-1997).  The reference runs `ndte` (120) subcycles of per-block `stress`
+JAX reworking of ``source/ice_dyn_evp.F90`` (Hunke & Dukowicz 1997).
+The reference runs `ndte` (120) subcycles of per-block `stress`
 (4-corner bilinear strain rates / stress relaxation, ``:947-1293``) and
 `stepu` (closed-form 2x2 implicit momentum solve, ``:1302-1443``) with
 two MPI halo exchanges *per subcycle* (``:397-402``) — 25% of reference
 runtime was halo wait (`Bound` timer).  Here the whole subcycle loop is
 one `lax.fori_loop` inside a single jitted program on dense global
-arrays: stencils are `jnp.roll`-style neighbor shifts that XLA's SPMD
-partitioner turns into ICI collective-permutes, automatically overlapped
-with interior compute — no hand-written message schedule exists.
+arrays: stencils are `jnp.roll`-style neighbor shifts.  On one device
+XLA fuses the loop body; over a mesh the k-halo path
+(`evp_sharded.py`) exchanges ghost rings with NCCL collective-permutes
+once per k subcycles — no hand-written message schedule exists.
 
 Math follows the reference exactly (see SURVEY.md "EVP math spec"):
 corner strain rates from the stencil coefficients cyp/cxp/cym/cxm and
@@ -26,7 +27,6 @@ Corner order in the stress arrays: index 0 = ne, 1 = nw, 2 = sw, 3 = se
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -98,10 +98,10 @@ class JnpNbr:
     """Neighbor-shift provider over the halo module (global jnp arrays).
 
     The EVP math below is written against this tiny interface so that
-    the same code runs (a) as plain jnp with GSPMD-friendly global
-    shifts and (b) inside the fused Pallas subcycle kernel
-    (`evp_pallas.KernelNbr`), which implements the shifts as in-VMEM
-    rolls.  loc/ftype only matter for tripole folds (jnp path only).
+    the same code runs (a) on global arrays with boundary-aware,
+    GSPMD-friendly shifts (this class) and (b) on locally padded
+    blocks inside the k-halo sharded loop (`evp_sharded.PadNbr`, plain
+    rolls).  loc/ftype only matter for tripole folds.
     """
 
     def __init__(self, bc):
@@ -177,7 +177,7 @@ def _strain_rates(geom, nbr, uvel, vvel):
 
     Returns (div, ten, shr) each of shape (4, ny, nx), corners (ne, nw,
     sw, se).  `geom` is any namespace carrying the stencil coefficient
-    fields (the Grid object, or the kernel-local view inside Pallas).
+    fields (the Grid object, or a block-local view in `evp_sharded`).
     """
     u, u_w, u_s, u_sw, v, v_w, v_s, v_sw = _corner_velocities(nbr, uvel, vvel)
     cyp, cxp, cym, cxm = geom.cyp, geom.cxp, geom.cym, geom.cxm
@@ -233,9 +233,7 @@ def _stress_relax(p: EvpParams, geom, nbr, strength, tmask_ice,
 def _str8_from_stress(geom, tmask_ice, stressp, stressm, stress12):
     """Pointwise assembly of the 8 momentum flux combinations from the
     (already-updated) corner stresses (``ice_dyn_evp.F90:1196-1289``).
-    Depends only on same-cell stresses + geometry, which the blocked
-    Pallas kernel exploits (recompute on the north halo rows instead of
-    carrying str8 between blocks)."""
+    Depends only on same-cell stresses + geometry."""
     sp1, sp2, sp3, sp4 = stressp
     sm1, sm2, sm3, sm4 = stressm
     s121, s122, s123, s124 = stress12
@@ -359,37 +357,6 @@ def _stepu(p: EvpParams, geom, nbr, iceumask, aiu, str8,
     strocnx = jnp.where(iceumask, taux, 0.0)
     strocny = jnp.where(iceumask, tauy, 0.0)
     return unew, vnew, strintx, strinty, strocnx, strocny
-
-
-def _use_pallas(dyn: DynamicsConfig, grid: Grid) -> bool:
-    """Fused-kernel eligibility: single TPU device, non-tripole fold.
-
-    The Pallas subcycle kernel keeps the whole EVP working set in VMEM
-    for all ndte iterations (zero HBM roundtrips inside the loop).  It
-    supports cyclic/open/closed boundaries; tripole folds and sharded
-    (multi-device) execution fall back to the jnp path, whose global
-    rolls GSPMD turns into ICI collective-permutes.
-
-    DEFAULT again since round 5: with the remap no longer dominating,
-    ABAB full-model benches on v5e gx1 measure the kernel FASTER than
-    the XLA fori_loop (342x vs 310x; standalone subcycle 3.1 vs
-    4.0 ms).  Round 4 had demoted it (238-244x vs 278x) when the step
-    was remap-bound.  CICE4_NO_PALLAS=1 or dynamics.use_pallas=False
-    restores the XLA loop.
-    """
-    import os
-    if not dyn.use_pallas or os.environ.get("CICE4_NO_PALLAS"):
-        return False
-    if os.environ.get("CICE4_NO_PALLAS_EVP"):
-        return False
-    if grid.bc.ns in ("tripole", "tripoleT"):
-        return False
-    try:
-        import jax.extend.backend as _b
-        backend = _b.get_backend().platform
-    except Exception:
-        backend = jax.default_backend()
-    return backend == "tpu" and jax.device_count() == 1
 
 
 def _evp_subcycle_jnp(p: EvpParams, grid: Grid, strength, icetmask,
@@ -538,25 +505,19 @@ def evp(state: State, grid: Grid, dyn: DynamicsConfig, dt: float,
     subcycle_args = (strength, icetmask, iceumask, aiu, uocn, vocn,
                      waterx, watery, forcex, forcey, umassdtei, fm,
                      uvel, vvel, stressp, stressm, stress12)
+    from cice4_tpu.ops.evp_sharded import (evp_subcycle_sharded,
+                                           sharded_eligible)
     from cice4_tpu.parallel.mesh import get_active_mesh
     mesh = get_active_mesh()
-    if _use_pallas(dyn, grid):
-        from cice4_tpu.ops.evp_pallas import evp_subcycle_pallas
+    if sharded_eligible(grid, mesh):
+        # k-halo fast path: one exchange per H-1 subcycles instead of
+        # GSPMD's per-roll permutes (SURVEY §7 hard-part 1)
         (uvel, vvel, stressp, stressm, stress12, d, strintx, strinty,
-         strocnx, strocny) = evp_subcycle_pallas(p, grid, *subcycle_args)
+         strocnx, strocny) = evp_subcycle_sharded(p, grid, mesh,
+                                                  *subcycle_args)
     else:
-        from cice4_tpu.ops.evp_sharded import (evp_subcycle_sharded,
-                                               sharded_eligible)
-        if sharded_eligible(grid, mesh):
-            # k-halo fast path: one exchange per H-1 subcycles instead
-            # of GSPMD's per-roll permutes (SURVEY §7 hard-part 1)
-            (uvel, vvel, stressp, stressm, stress12, d, strintx,
-             strinty, strocnx, strocny) = evp_subcycle_sharded(
-                p, grid, mesh, *subcycle_args)
-        else:
-            (uvel, vvel, stressp, stressm, stress12, d, strintx,
-             strinty, strocnx, strocny) = _evp_subcycle_jnp(
-                p, grid, *subcycle_args)
+        (uvel, vvel, stressp, stressm, stress12, d, strintx, strinty,
+         strocnx, strocny) = _evp_subcycle_jnp(p, grid, *subcycle_args)
 
     divu = p25 * d["div_sum"] * grid.tarear
     delta_mean = p25 * d["delta_sum"] * grid.tarear

@@ -41,10 +41,7 @@ from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
-try:
-    from jax import shard_map
-except ImportError:                      # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 DEFAULT_H = 11          # ghost width -> H-1 subcycles per exchange

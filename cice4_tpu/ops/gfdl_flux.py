@@ -1,6 +1,6 @@
 """GFDL ocean-surface flux physics (ACCESS-OM coupled driver).
 
-TPU-native port of the GFDL/FMS surface-layer package the ACCESS-OM
+JAX port of the GFDL/FMS surface-layer package the ACCESS-OM
 driver uses to compute open-water atmosphere fluxes routed through the
 ice model (``drivers/access-om/cpl_forcing_handler.F90
 gfdl_ocean_fluxes:925-1056``):
@@ -8,7 +8,7 @@ gfdl_ocean_fluxes:925-1056``):
 * ``escomp`` — Goff-Gratch saturation vapor pressure with the
   ice/supercooled-water blend (``sat_vapor_pres_k_mod.F90
   compute_es_k:131-192``; the Fortran builds a lookup table from this
-  formula — on TPU we evaluate it directly, transcendentals are cheap
+  formula — here it is evaluated directly, transcendentals are cheap
   and the table's gather is not).
 * ``compute_ocean_roughness`` — charnock / beljaars / fixed schemes
   (``ocean_rough_mod.F90:63-199``).

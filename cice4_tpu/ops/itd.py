@@ -4,9 +4,10 @@ Dense, masked JAX reworking of ``source/ice_itd.F90``: category
 aggregation, rebinning into thickness bounds, conservative transfers
 between categories, small-area elimination.  The reference builds
 compressed active-cell index lists and loops `do ij = 1, icells`
-(`ice_itd.F90:279-485` etc.); on TPU every operation is dense over the
-``(ny, nx)`` plane with `jnp.where` masks — VPU lanes make the "wasted"
-land/ice-free work free, and there is no data-dependent shape anywhere.
+(`ice_itd.F90:279-485` etc.); here every operation is dense over the
+``(ny, nx)`` plane with `jnp.where` masks — the "wasted" land/ice-free
+work costs little in a memory-bound elementwise fusion, and there is no
+data-dependent shape anywhere.
 
 Tracer dependency (``ice_init.F90:848-852``): area tracers (Tsfc, alvl,
 volpn) are carried as ``aicen * t``; volume tracers (iage, vlvl) as

@@ -59,10 +59,10 @@ SHIFTS = {
 
 class JnpShift:
     """Global-view neighbor shifts with boundary conditions (wraps
-    :mod:`cice4_tpu.parallel.halo`).  The Pallas remap kernel provides
-    an interface-compatible in-VMEM twin (`remap_pallas.PallasShift`),
-    so every geometry/reconstruction/divergence helper below runs
-    unchanged inside the fused kernel."""
+    :mod:`cice4_tpu.parallel.halo`).  Every geometry/reconstruction/
+    divergence helper below takes the shift provider as an argument, so
+    the k-halo sharded path runs them unchanged on padded blocks with
+    cyclic local boundaries."""
 
     __slots__ = ("bc",)
 
@@ -442,8 +442,8 @@ def _quad_points(lx, ly, order):
 def _tracer_meta(tracer_names, nilyr, nslyr):
     """Static transported-tracer table (``init_transport:81-170``):
     (name, tracer_type, parent_row).  Rows ordered type-1-first (all
-    independent tracers, then all parent-riding ones) so both the XLA
-    and Pallas paths split the stack with static contiguous slices:
+    independent tracers, then all parent-riding ones) so the
+    reconstruction splits the stack with static contiguous slices:
     hi, hs, Tsfc, area tracers | volume/snow tracers, qice layers
     (depend on hi), qsno layers (depend on hs)."""
     meta = [("hi", 1, -1), ("hs", 1, -1), ("Tsfc", 1, -1)]
@@ -474,7 +474,7 @@ def _construct(mm, hm_real, tm, meta, sh):
     """Batched reconstruction for one category
     (``construct_fields:1069-1382``).  tm: (T, ny, nx) stacked tracers,
     ordered type-1-first (see `_tracer_meta`) so the stack splits with
-    static slices — Pallas/Mosaic-safe (no gathers).
+    static slices (no gathers).
 
     Returns (mc, mx, my, tc, tx, ty) with tracer arrays stacked.
     """
@@ -553,7 +553,7 @@ def _geom_moments(edge, afac, dx, dy, order, sh, edgearea=None):
     """Category-independent quadrature moments per donor position
     (``transport_integrals:3307-3632``, factored).
 
-    TPU restructuring (round 3): the reference (and round 2's code)
+    Restructured from the reference, which
     folds the *mass* reconstruction into the triangle quadrature, so
     the moment planes had to be recomputed per category.  The mass and
     tracer reconstructions are linear, so the quadrature factorizes:
@@ -876,8 +876,7 @@ def _geom_accumulators(afac, dx, dy, order, sh, ea_e=None, ea_n=None):
 
     This hoists `_acc_divergence`'s ± scatter (which `_flux_divergence`
     performs per category on mass-contracted planes) to the purely
-    geometric moments — computed ONCE for all categories.  The Pallas
-    remap kernel consumes these planes directly.
+    geometric moments — computed ONCE for all categories.
     """
     GA = {off: [0.0] * 10 for off in ALL_OFFSETS}
     for edge, ea in (("east", ea_e), ("north", ea_n)):
@@ -898,9 +897,9 @@ def _flux_divergence_ga(GSH, mc, mx, my, tc, tx, ty, meta, sh):
     ``div(c) = Σ_off S_off( Σ_k S_-off(GA_k[off]) · U_k )(c)`` where
     GA are the category-INDEPENDENT geometric divergence accumulators
     (`_geom_accumulators`) and U_k the monomial coefficients of the
-    donor-cell product polynomial — the same reassociation the Pallas
-    K2 kernel uses (`remap_pallas._contract_kernel`), expressed in
-    XLA.  Vs `_flux_divergence` this removes the per-category
+    donor-cell product polynomial (distributivity only, so the two
+    paths agree to roundoff).  Vs `_flux_divergence` this removes the
+    per-category
     mass-moment contraction and the 27 shifted tracer stacks: the
     back-shifted GA planes in `GSH` are computed once per step for all
     categories, and only the T+1 result planes are shifted per offset.
@@ -950,8 +949,8 @@ def _flux_divergence_ga(GSH, mc, mx, my, tc, tx, ty, meta, sh):
 
 
 def _shift_by_jnp(sh, f, off):
-    """Composite masked shift by offset (di, dj), x then y — the jnp
-    twin of `remap_pallas._shift_by`."""
+    """Composite masked shift by offset (di, dj), x then y (the
+    composition order of `_shift9`)."""
     di, dj = off
     if di == 1:
         f = sh.e(f)
@@ -964,67 +963,129 @@ def _shift_by_jnp(sh, f, off):
     return f
 
 
-def _use_k0_ga(grid, local_block=False) -> bool:
-    """Eligibility of the VMEM geometry kernel feeding the GA-factored
-    XLA contraction (the round-5 default TPU path): single TPU device
-    (or a per-device local block inside `transport_remap_sharded`'s
-    shard_map), non-tripole, room for the cyclic wrap ring in the x
-    pad."""
-    import os
-    if os.environ.get("CICE4_NO_PALLAS") or os.environ.get("CICE4_NO_K0_GA"):
-        return False
-    if grid.bc.ns in ("tripole", "tripoleT"):
-        return False
-    try:
-        import jax.extend.backend as _b
-        backend = _b.get_backend().platform
-    except Exception:
-        backend = jax.default_backend()
-    if backend != "tpu" or (not local_block and jax.device_count() != 1):
-        return False
-    from cice4_tpu.ops.remap_pallas import _HALO, pad_nx
-    nxp = pad_nx(grid.nx)
-    if grid.bc.ew == "cyclic" and 0 < nxp - grid.nx < 2 * _HALO:
-        return False
-    return True
+DIAGS = ((1, 1), (-1, 1), (1, -1), (-1, -1))
 
 
-def _use_pallas_remap(grid, dtype) -> bool:
-    """Fused-kernel eligibility (mirrors `evp._use_pallas`): single TPU
-    device, non-tripole boundaries, working set within VMEM."""
-    import os
-    if os.environ.get("CICE4_NO_PALLAS"):
-        return False
-    if grid.bc.ns in ("tripole", "tripoleT"):
-        return False
-    try:
-        import jax.extend.backend as _b
-        backend = _b.get_backend().platform
-    except Exception:
-        backend = jax.default_backend()
-    if backend != "tpu" or jax.device_count() != 1:
-        return False
-    from cice4_tpu.ops.remap_pallas import _HALO, pad_nx
-    nxp = pad_nx(grid.nx)
-    if grid.bc.ew == "cyclic" and 0 < nxp - grid.nx < 2 * _HALO:
-        return False  # no room for the cyclic wrap halo in the x pad
-    # The kernel compiles and matches the XLA path on the real chip up
-    # to gx1 (tools/check_remap_tpu.py), but the GA-factored XLA
-    # contraction (the round-4 default) now beats it everywhere
-    # measured: gx3 25.4 vs 27.3 ms, gx1 29.9 vs 39.8 ms.  Keep the
-    # kernel opt-in (CICE4_FORCE_PALLAS_REMAP=1) as the substrate for
-    # the next round's VMEM-resident fusion work (type-1 formula
-    # split, single GA stream).
-    return bool(os.environ.get("CICE4_FORCE_PALLAS_REMAP"))
+def _grad_stream(sh, phi, phimask, cnx, cny, sval, smask):
+    """`_limited_gradient_shifted` in streaming form: neighbor planes
+    are produced one offset at a time (sval/smask callables) and folded
+    into running min/max, so no 9-offset table is ever live.  Same
+    formulas — min/max folding is order-exact, and the gx/gy axis
+    neighbors are the identical masked values.
+    """
+    def nb(off):
+        m = smask(off)
+        return m * sval(off) + (1.0 - m) * phi
+
+    phi_e = nb((1, 0))
+    phi_w = nb((-1, 0))
+    phi_n = nb((0, 1))
+    phi_s = nb((0, -1))
+
+    gx = 0.5 * (phi_e - phi_w)
+    gy = 0.5 * (phi_n - phi_s)
+
+    pmn = jnp.minimum(jnp.minimum(phi_e, phi_w),
+                      jnp.minimum(phi_n, phi_s))
+    pmx = jnp.maximum(jnp.maximum(phi_e, phi_w),
+                      jnp.maximum(phi_n, phi_s))
+    pmn = jnp.minimum(pmn, phi)
+    pmx = jnp.maximum(pmx, phi)
+    for off in DIAGS:
+        v = nb(off)
+        pmn = jnp.minimum(pmn, v)
+        pmx = jnp.maximum(pmx, v)
+    pmn = pmn - phi
+    pmx = pmx - phi
+
+    w1 = (0.5 - cnx) * gx + (0.5 - cny) * gy
+    w2 = (0.5 - cnx) * gx - (0.5 + cny) * gy
+    w3 = -(0.5 + cnx) * gx - (0.5 + cny) * gy
+    w4 = (0.5 - cny) * gy - (0.5 + cnx) * gx
+
+    qmn = jnp.minimum(jnp.minimum(w1, w2), jnp.minimum(w3, w4))
+    qmx = jnp.maximum(jnp.maximum(w1, w2), jnp.maximum(w3, w4))
+
+    wa = jnp.where(jnp.abs(qmn) > 0.0,
+                   jnp.maximum(0.0, pmn / jnp.where(qmn != 0.0, qmn, 1.0)),
+                   1.0)
+    wb = jnp.where(jnp.abs(qmx) > 0.0,
+                   jnp.maximum(0.0, pmx / jnp.where(qmx != 0.0, qmx, 1.0)),
+                   1.0)
+    lim = jnp.minimum(1.0, jnp.minimum(wa, wb)) * phimask
+    return lim * gx, lim * gy
+
+
+def _construct_streaming(mm, hm_real, tm, meta, sh):
+    """`_construct` with every neighbor shift produced on demand
+    instead of via the 9-offset `_shift9` tables (which would hold 9
+    copies of the T-deep stacks live): identical reconstruction (same
+    masked-neighbor values, same limiter), the reassociation trick of
+    the GA contraction applied to the reconstruction."""
+    n1 = _n_type1(meta)
+    T = len(meta)
+    par2 = [meta[k][2] for k in range(n1, T)]
+
+    def shift(f, off):
+        return _shift_by_jnp(sh, f, off)
+
+    mmask = (mm > cn.puny).astype(mm.dtype)
+    zero = jnp.zeros_like(mm)
+    mx, my = _grad_stream(
+        sh, mm, hm_real, zero, zero,
+        lambda off: shift(mm, off),
+        lambda off: shift(hm_real, off))
+    mc = mm
+    safe_mm = jnp.maximum(mm, cn.puny)
+    mxav = jnp.where(mmask > 0, mx / (12.0 * safe_mm), 0.0)
+    myav = jnp.where(mmask > 0, my / (12.0 * safe_mm), 0.0)
+
+    def mmask_sh(off):
+        return (shift(mm, off) > cn.puny).astype(mm.dtype)
+
+    # type-1 tracers
+    tm1 = tm[:n1]
+    tx1, ty1 = _grad_stream(
+        sh, tm1, mmask, mxav, myav,
+        lambda off: shift(tm1, off),
+        lambda off: mmask_sh(off))
+    tc1 = tm1 - tx1 * mxav[None] - ty1 * myav[None]
+
+    w2 = mc[None] * tx1 + mx[None] * tc1
+    w3 = mc[None] * ty1 + my[None] * tc1
+    denom = mm[None] * tm1
+    good = (mmask[None] > 0) & (jnp.abs(tm1) > cn.puny)
+    mtxav1 = jnp.where(good, w2 / (12.0 * jnp.where(
+        jnp.abs(denom) > cn.puny, denom, 1.0)), 0.0)
+    mtyav1 = jnp.where(good, w3 / (12.0 * jnp.where(
+        jnp.abs(denom) > cn.puny, denom, 1.0)), 0.0)
+
+    if par2:
+        tm2 = tm[n1:]
+        tmask1 = (jnp.abs(tm1) > 0.0).astype(mm.dtype) * mmask[None]
+        pick = lambda s: jnp.stack([s[p] for p in par2])  # noqa: E731
+        pmask = pick(tmask1)
+        parstack = pick(tm1)
+        pmx_, pmy_ = pick(mtxav1), pick(mtyav1)
+        tx2, ty2 = _grad_stream(
+            sh, tm2, pmask, pmx_, pmy_,
+            lambda off: shift(tm2, off),
+            lambda off: ((jnp.abs(shift(parstack, off)) > 0.0)
+                         .astype(mm.dtype) * mmask_sh(off)))
+        tc2 = tm2 - tx2 * pmx_ - ty2 * pmy_
+        tc = jnp.concatenate([tc1, tc2], axis=0)
+        tx = jnp.concatenate([tx1, tx2], axis=0)
+        ty = jnp.concatenate([ty1, ty2], axis=0)
+    else:
+        tc, tx, ty = tc1, tx1, ty1
+    return mc, mx, my, tc, tx, ty
 
 
 def transport_remap(state: State, grid: Grid, dt,
                     integral_order: int = 2, dp_midpt: bool = False,
                     fixed_area: bool = False,
                     conservation_check: bool = False,
-                    monotonicity_check: bool = False,
-                    use_pallas: bool | None = None,
-                    local_block: bool = False):
+                    monotonicity_check: bool = False):
     """Full incremental-remapping advection of the ice state.
 
     Returns (state, aice0) — the advected open-water fraction feeds the
@@ -1039,8 +1100,6 @@ def transport_remap(state: State, grid: Grid, dt,
     nslyr = state.esnon.shape[1]
     tracer_names = list(state.trcrn.keys())
     meta = _tracer_meta(tracer_names, nilyr, nslyr)
-    if use_pallas is None:
-        use_pallas = _use_pallas_remap(grid, state.aicen.dtype)
 
     # scaled departure displacements at U corners (departure_points)
     dx = -dt * state.uvel / grid.dxu
@@ -1083,109 +1142,56 @@ def transport_remap(state: State, grid: Grid, dt,
     tm = jnp.stack([src[name] for (name, _t, _p) in meta],
                    axis=1)               # (ncat, T, ny, nx)
 
-    if use_pallas and not fixed_area:
-        from cice4_tpu.ops.remap_pallas import remap_pallas_divergence
+    empty = jnp.zeros((0,) + aice0.shape, aice0.dtype)
+    # GA-factored contraction (the default): category-independent
+    # geometry accumulators, back-shifted once for all categories;
+    # agrees with the legacy per-category contraction to roundoff.
+    # CICE4_REMAP_GA=0 selects the legacy path.
+    import os as _os
+    if _os.environ.get("CICE4_REMAP_GA", "1") != "0":
+        GA = _geom_accumulators(afac, dx, dy, integral_order,
+                                sh, ea_e, ea_n)
+        zero = jnp.zeros_like(afac)
+        # back-shift each offset's 10 moment planes as ONE stacked
+        # shift (9 stacked shifts instead of 90 separate pad/mask ops)
+        GSH = {}
+        for off in ALL_OFFSETS:
+            st = jnp.stack([GA[off][k] + zero for k in range(10)])
+            st = _shift_by_jnp(sh, st, (-off[0], -off[1]))
+            GSH[off] = [st[k] for k in range(10)]
 
-        # open water rides as an extra mass-only "category" (row 0)
-        mm_ext = jnp.concatenate([aice0[None], state.aicen], axis=0)
-        tm_ext = jnp.concatenate(
-            [jnp.zeros_like(tm[:1]), tm], axis=0)
-        div_ext, divt_ext = remap_pallas_divergence(
-            dx, dy, afac, mm_ext, tm_ext, grid.hm, meta, bc.ew, bc.ns,
-            integral_order)
-        div0 = div_ext[0]
-        upd = jax.vmap(
-            lambda mmn, tmn, dv, dvt: _update_category(
-                mmn, tmn, dv, dvt, grid.tmask, grid.tarear, meta)
-        )(state.aicen, tm, div_ext[1:], divt_ext[1:])
-        mm_new, tm_new, (mm_mid, mt_mid) = upd
+        def _cat_ga(mmn, tmn):
+            mcn, mxn, myn, tcn, txn, tyn = _construct_streaming(
+                mmn, grid.hm, tmn, list(meta), sh)
+            dv, dvt = _flux_divergence_ga(GSH, mcn, mxn, myn,
+                                          tcn, txn, tyn, meta, sh)
+            return _update_category(mmn, tmn, dv, dvt, grid.tmask,
+                                    grid.tarear, meta)
+
+        mc0, mx0, my0, *_ = _construct_streaming(aice0, grid.hm, empty,
+                                                 [], sh)
+        div0, _ = _flux_divergence_ga(GSH, mc0, mx0, my0,
+                                      empty, empty, empty, [], sh)
+        mm_new, tm_new, (mm_mid, mt_mid) = jax.vmap(_cat_ga)(
+            state.aicen, tm)
     else:
-        # category-independent geometric moment planes, computed once
-        # GA-factored contraction is the default: ABAB-benched 25%
-        # faster full-model step at gx1 (245x vs 195x on v5e, round 4)
-        # and bit-equal to the legacy per-category contraction.
-        # CICE4_REMAP_GA=0 restores the legacy path.
-        import os as _os
-        use_ga = _os.environ.get("CICE4_REMAP_GA", "1") != "0"
-        empty = jnp.zeros((0,) + aice0.shape, aice0.dtype)
-        if use_ga and _use_k0_ga(grid, local_block) and ea_e is None:
-            # fully fused TPU path (round 5): K0 (geometry -> shifted
-            # GA planes) + K12 (reconstruction + contraction per
-            # category), both VMEM-resident; same math as the XLA GA
-            # path below (shared _construct_vmem/_flux_divergence_ga),
-            # agrees to f32 roundoff
-            from cice4_tpu.ops.remap_pallas import (ga_gsh_pallas,
-                                                    k12_divergence)
-            gsh9p = ga_gsh_pallas(dx, dy, afac, bc.ew, bc.ns,
-                                  integral_order, keep_pad=True)
-            mm_ext = jnp.concatenate([aice0[None], state.aicen], axis=0)
-            tm_ext = jnp.concatenate([jnp.zeros_like(tm[:1]), tm],
-                                     axis=0)
-            div_ext, divt_ext = k12_divergence(
-                gsh9p, grid.hm, mm_ext, tm_ext, meta, bc.ew, bc.ns)
-            div0 = div_ext[0]
-            upd = jax.vmap(
-                lambda mmn, tmn, dv, dvt: _update_category(
-                    mmn, tmn, dv, dvt, grid.tmask, grid.tarear, meta)
-            )(state.aicen, tm, div_ext[1:], divt_ext[1:])
-            mm_new, tm_new, (mm_mid, mt_mid) = upd
-        elif use_ga:
-            # GA-factored contraction: category-independent geometry
-            # accumulators, back-shifted once for all categories
-            GA = _geom_accumulators(afac, dx, dy, integral_order,
-                                    sh, ea_e, ea_n)
-            zero = jnp.zeros_like(afac)
-            # back-shift each offset's 10 moment planes as ONE
-            # stacked shift (the per-plane form cost ~1.9 ms of 90
-            # separate pad/mask ops at gx1; same values, 9 stacked
-            # shifts)
-            GSH = {}
-            for off in ALL_OFFSETS:
-                st = jnp.stack([GA[off][k] + zero
-                                for k in range(10)])
-                st = _shift_by_jnp(sh, st, (-off[0], -off[1]))
-                GSH[off] = [st[k] for k in range(10)]
+        G_e = _geom_moments("east", afac, dx, dy, integral_order,
+                            sh, ea_e)
+        G_n = _geom_moments("north", afac, dx, dy, integral_order,
+                            sh, ea_n)
 
-            # streaming reconstruction (`remap_pallas._construct_vmem`
-            # with the jnp shift provider): same van-Leer limiter
-            # values, but neighbor planes are folded on demand instead
-            # of materializing the 9-offset tables of the T-deep
-            # stacks — the same reassociation trick as the GA
-            # contraction, applied to `_construct`
-            from cice4_tpu.ops.remap_pallas import _construct_vmem
+        # advect open water (mass only); feeds ridging
+        mc0, mx0, my0, _tc, _tx, _ty = _construct(
+            aice0, grid.hm, empty, [], sh)
+        div0, _ = _flux_divergence(G_e, G_n, mc0, mx0, my0,
+                                   empty, empty, empty, [], sh)
 
-            def _cat_ga(mmn, tmn):
-                mcn, mxn, myn, tcn, txn, tyn = _construct_vmem(
-                    mmn, grid.hm, tmn, list(meta), sh)
-                dv, dvt = _flux_divergence_ga(GSH, mcn, mxn, myn,
-                                              tcn, txn, tyn, meta, sh)
-                return _update_category(mmn, tmn, dv, dvt, grid.tmask,
-                                        grid.tarear, meta)
-
-            mc0, mx0, my0, *_ = _construct_vmem(aice0, grid.hm, empty,
-                                                [], sh)
-            div0, _ = _flux_divergence_ga(GSH, mc0, mx0, my0,
-                                          empty, empty, empty, [], sh)
-            mm_new, tm_new, (mm_mid, mt_mid) = jax.vmap(_cat_ga)(
-                state.aicen, tm)
-        else:
-            G_e = _geom_moments("east", afac, dx, dy, integral_order,
-                                sh, ea_e)
-            G_n = _geom_moments("north", afac, dx, dy, integral_order,
-                                sh, ea_n)
-
-            # advect open water (mass only); feeds ridging
-            mc0, mx0, my0, _tc, _tx, _ty = _construct(
-                aice0, grid.hm, empty, [], sh)
-            div0, _ = _flux_divergence(G_e, G_n, mc0, mx0, my0,
-                                       empty, empty, empty, [], sh)
-
-            out = jax.vmap(
-                lambda mmn, tmn: _remap_category(
-                    mmn, tmn, grid.hm, grid.tmask, grid.tarear,
-                    G_e, G_n, meta, sh, want_mid=True)
-            )(state.aicen, tm)
-            mm_new, tm_new, (mm_mid, mt_mid) = out
+        out = jax.vmap(
+            lambda mmn, tmn: _remap_category(
+                mmn, tmn, grid.hm, grid.tmask, grid.tarear,
+                G_e, G_n, meta, sh, want_mid=True)
+        )(state.aicen, tm)
+        mm_new, tm_new, (mm_mid, mt_mid) = out
 
     aice0_mid = aice0 - div0 * grid.tarear
     aice0_new = jnp.where(grid.tmask, jnp.maximum(aice0_mid, 0.0), 0.0)
@@ -1284,10 +1290,7 @@ def transport_remap_sharded(state: State, grid: Grid, dt, mesh,
     """
     from cice4_tpu.ops.evp_sharded import _exchange
 
-    try:
-        from jax import shard_map
-    except ImportError:                      # pragma: no cover
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     H = 6
@@ -1361,8 +1364,7 @@ def transport_remap_sharded(state: State, grid: Grid, dt, mesh,
             scale_factor=zero, strocnxT=zero, strocnyT=zero,
         )
         out, aice0 = transport_remap(
-            st, gridlike, dt, integral_order, dp_midpt, fixed_area,
-            local_block=True)
+            st, gridlike, dt, integral_order, dp_midpt, fixed_area)
         core = lambda v: v[..., H:-H, H:-H]  # noqa: E731
         return (core(out.aicen), core(out.vicen), core(out.vsnon),
                 core(out.eicen), core(out.esnon), core(out.tsfcn),

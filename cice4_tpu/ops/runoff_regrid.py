@@ -1,6 +1,6 @@
 """Runoff regridding: masked, conserving gaussian filter.
 
-TPU-native port of the COSIMA coupled driver's runoff smoother
+JAX port of the COSIMA coupled driver's runoff smoother
 (``drivers/access-om/gaussian_filter.F90``): river runoff received on
 coastal points is spread over nearby ocean cells with a gaussian
 kernel; weights clobbered by the land mask are redistributed evenly

@@ -1,6 +1,6 @@
 """Vertical thermodynamics: energy-conserving multilayer column physics.
 
-TPU-native reworking of ``source/ice_therm_vertical.F90`` (Bitz &
+JAX reworking of ``source/ice_therm_vertical.F90`` (Bitz &
 Lipscomb 1999).  One call handles one thickness category over the whole
 ``(ny, nx)`` plane; the caller vmaps/loops over categories.
 
@@ -8,7 +8,8 @@ The reference's Newton-iterated implicit solve compacts the set of
 unconverged cells into index lists each iteration
 (``temperature_changes:1613-1656``); here the iteration is a
 `lax.while_loop` whose body updates only unconverged cells through
-masks — dense VPU arithmetic replaces gather/scatter compaction, and
+masks — dense elementwise arithmetic replaces gather/scatter
+compaction, and
 the loop exits when every cell satisfies the five convergence
 conditions (or `nitermax` is reached).
 
@@ -20,7 +21,6 @@ algorithm over rows (each row a dense (ny, nx) plane).
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -66,11 +66,9 @@ def make_thermo_params(cfg, itd) -> ThermoParams:
 
 
 def _profile_const(vals, nilyr, like=None):
-    """Fixed vertical profile built from python scalars — scalar
-    splats, not an array constant: Pallas kernels may capture scalar
-    consts only, and Mosaic cannot broadcast a (n,1,1) vector along
-    sublanes+lanes at once.  With `like` (a reference plane) the
-    profile is materialized at (nilyr, *like.shape)."""
+    """Fixed vertical profile built from python scalars.  With `like`
+    (a reference plane) the profile is materialized at
+    (nilyr, *like.shape)."""
     if like is not None:
         return jnp.stack([jnp.full_like(like, float(v))
                           for v in vals[:nilyr]])
@@ -223,41 +221,10 @@ def temperature_changes(p: ThermoParams, dt, has_ice,
     All (ny, nx)-shaped (layer arrays (nlyr, ny, nx)).  `has_ice` masks
     active cells.  Returns dict of updated fields + fluxes.
 
-    On TPU the solve runs as a row-blocked Pallas kernel with
-    per-block convergence + ice-activity gating
-    (`_temperature_changes_pallas`); elsewhere (and under
-    CICE4_NO_PALLAS_THERMO) the whole-grid `lax.while_loop` runs.
+    The whole grid iterates in one `lax.while_loop` until every ice
+    cell has converged; `niter` is that global count and `niter_cell`
+    the iterations each cell took before its own convergence.
     """
-    if _use_pallas_thermo() and Tsf.ndim == 2:
-        return _temperature_changes_pallas(
-            p, dt, has_ice, rhoa, flw, potT, Qa, shcoef, lhcoef,
-            fswsfc, fswint, fswthrun, Sswabs, Iswabs,
-            hilyr, hslyr, qin, Tin, qsn, Tsn, Tsf, Tbot, einit)
-    return _temperature_changes_core(
-        p, dt, has_ice, rhoa, flw, potT, Qa, shcoef, lhcoef,
-        fswsfc, fswint, fswthrun, Sswabs, Iswabs,
-        hilyr, hslyr, qin, Tin, qsn, Tsn, Tsf, Tbot, einit)
-
-
-def _use_pallas_thermo() -> bool:
-    import os
-    if os.environ.get("CICE4_NO_PALLAS_THERMO"):
-        return False
-    try:
-        return jax.default_backend() == "tpu" and jax.device_count() == 1
-    except Exception:
-        return False
-
-
-def _temperature_changes_core(p: ThermoParams, dt, has_ice,
-                              rhoa, flw, potT, Qa, shcoef, lhcoef,
-                              fswsfc, fswint, fswthrun, Sswabs, Iswabs,
-                              hilyr, hslyr, qin, Tin, qsn, Tsn, Tsf,
-                              Tbot, einit, loop=True):
-    """The solve body shared by the XLA path (whole grid, `loop=True`)
-    and the Pallas kernel (per row block; `loop=False` is the
-    inactive-block branch, equivalent to the while_loop's first-
-    iteration no-op on cells without ice)."""
     nilyr, nslyr = p.nilyr, p.nslyr
     nmat = nslyr + nilyr + 1
     tmlt = _profile_const(p.tmlt, nilyr, like=hilyr)
@@ -285,8 +252,6 @@ def _temperature_changes_core(p: ThermoParams, dt, has_ice,
         else Tin_init <= -dTemp
     Iswabs_tmp = jnp.where(is_cold, jnp.minimum(Iswabs, room), 0.0)
     Iswabs_tmp = jnp.where(Iswabs_tmp < cn.puny, 0.0, Iswabs_tmp)
-    # list-rebuild instead of .at[k].set: static-index scatters have no
-    # Pallas TPU lowering, and this path runs inside _tc_kernel
     isw = [Iswabs[k] for k in range(nilyr)]
     for k in range(nilyr):
         dswabs = jnp.minimum(isw[k] - Iswabs_tmp[k], fswint)
@@ -393,7 +358,6 @@ def _temperature_changes_core(p: ThermoParams, dt, has_ice,
 
     def body(carry):
         # converged rides the carry as a 0/1 mask in the compute dtype
-        # (carried i1/i8 bools hit an unsupported Mosaic truncation)
         active = (carry["converged"] == 0.0) & has_ice
         Tsf_c, Tsn_c, Tin_c = carry["Tsf"], carry["Tsn"], carry["Tin"]
         kh_c = carry["kh"]
@@ -518,10 +482,9 @@ def _temperature_changes_core(p: ThermoParams, dt, has_ice,
         bad_e = ferr > 0.9 * ferrmax_eff
         newly_unconv = newly_unconv | bad_e
 
-        # conductivity reduction for overshooting layers (":2060-2072");
-        # list-rebuild (no static-scatter lowering in Pallas), keeping
-        # the chained row updates (row ki+nslyr+1 is read back by the
-        # next ki's new_above)
+        # conductivity reduction for overshooting layers (":2060-2072"),
+        # keeping the chained row updates (row ki+nslyr+1 is read back
+        # by the next ki's new_above)
         khr = [kh_c[r] for r in range(kh_c.shape[0])]
         denom = jnp.maximum(jnp.abs(fct_new - fcondbot), cn.puny)
         fracr = jnp.maximum(0.5 * (1.0 - ferr / denom), 0.1)
@@ -574,6 +537,7 @@ def _temperature_changes_core(p: ThermoParams, dt, has_ice,
                              carry["flwoutn"])
         out["dq_col"] = jnp.where(active, dq_col, carry["dq_col"])
         out["why"] = jnp.where(active, why, carry["why"])
+        out["niter_cell"] = carry["niter_cell"] + active.astype(jnp.int32)
         out["all_conv"] = jnp.all((out["converged"] != 0.0) | ~has_ice)
         out["niter"] = carry["niter"] + 1
         return out
@@ -584,9 +548,10 @@ def _temperature_changes_core(p: ThermoParams, dt, has_ice,
         fsurfn=zero, fcondtopn=zero, fcondbot=zero,
         fsensn=zero, flatn=zero, flwoutn=zero, dq_col=zero,
         why=jnp.zeros_like(has_ice, jnp.int32),
+        niter_cell=jnp.zeros_like(has_ice, jnp.int32),
         all_conv=jnp.asarray(False), niter=jnp.asarray(0),
     )
-    res = jax.lax.while_loop(cond, body, carry0) if loop else carry0
+    res = jax.lax.while_loop(cond, body, carry0)
 
     return dict(
         Tsf=res["Tsf"], Tsn=res["Tsn"], Tin=res["Tin"],
@@ -597,147 +562,8 @@ def _temperature_changes_core(p: ThermoParams, dt, has_ice,
         fswsfc=fswsfc, fswint=fswint, Sswabs=Sswabs, Iswabs=Iswabs,
         dq_flux=res["dq_col"] / dt,
         converged=res["converged"] != 0.0, niter=res["niter"],
-        why=res["why"],
+        niter_cell=res["niter_cell"], why=res["why"],
     )
-
-
-# ---------------------------------------------------------------------------
-# Row-blocked Pallas temperature solve (TPU)
-# ---------------------------------------------------------------------------
-#
-# The while_loop above iterates the WHOLE grid until every cell
-# converges: each iteration streams a ~27-plane carry through HBM, and
-# a single slow-converging cell anywhere makes every cell pay the
-# extra iterations — while ice covers ~15-25% of the ocean.  The
-# reference pays per-cell iteration counts through its compressed
-# `indxi/indxj` gather lists (``ice_therm_vertical.F90:1403-1461``);
-# the TPU-native analogue is the same row-block gating as the EVP
-# kernel (`evp_pallas._kernel_blocked`): grid over row blocks,
-# `pl.when` skips ice-free blocks outright (their per-cell results are
-# exactly the solve's no-op carry), and each active block runs its OWN
-# while_loop in VMEM until just ITS cells converge.  The solve is
-# pointwise (no neighbor stencil), so blocks need no halo and the
-# per-cell math — shared with the XLA path above — is bitwise
-# identical; only iteration counts differ per block, which the
-# converged-cell merge makes result-invariant.
-
-_TC_SINGLES = ("has_ice", "rhoa", "flw", "potT", "Qa", "shcoef",
-               "lhcoef", "fswsfc", "fswint", "fswthrun", "hilyr",
-               "hslyr", "Tsf", "Tbot", "einit")
-_TC_OUT_SINGLES = ("Tsf", "fsurfn", "fcondtopn", "fcondbot", "fsensn",
-                   "flatn", "flwoutn", "fswabsn", "fswsfc", "fswint",
-                   "dq_flux", "converged", "why")
-
-
-def _tc_kernel(p, dt, nslyr, nilyr, *refs):
-    from jax.experimental import pallas as pl
-
-    ns1 = len(_TC_SINGLES)
-    singles = {k: refs[i][...] for i, k in enumerate(_TC_SINGLES)}
-    Sswabs, Iswabs, qin, Tin, qsn, Tsn = (
-        r[...] for r in refs[ns1:ns1 + 6])
-    out_ref = refs[ns1 + 6]
-    dtype = singles["rhoa"].dtype
-    has_ice = singles["has_ice"] != 0.0
-    # block activity from the streamed-in mask (the DMA happens either
-    # way; the gate skips the compute — and an SMEM activity operand
-    # would not survive the vmap batching rule's blockspec rewrite)
-    active = jnp.any(has_ice)
-
-    def run(loop):
-        tc = _temperature_changes_core(
-            p, dt, has_ice, singles["rhoa"], singles["flw"],
-            singles["potT"], singles["Qa"], singles["shcoef"],
-            singles["lhcoef"], singles["fswsfc"], singles["fswint"],
-            singles["fswthrun"], Sswabs, Iswabs, singles["hilyr"],
-            singles["hslyr"], qin, Tin, qsn, Tsn, singles["Tsf"],
-            singles["Tbot"], singles["einit"], loop=loop)
-        planes = [tc[k] if k not in ("converged", "why")
-                  else tc[k].astype(dtype) for k in _TC_OUT_SINGLES]
-        niter_plane = jnp.full_like(planes[0],
-                                    jnp.asarray(tc["niter"], dtype))
-        out_ref[...] = jnp.concatenate(
-            [jnp.stack(planes), tc["Tsn"], tc["Tin"], tc["qsn"],
-             tc["qin"], tc["Sswabs"], tc["Iswabs"],
-             niter_plane[None]], axis=0)
-
-    @pl.when(active)
-    def _():
-        run(True)
-
-    @pl.when(jnp.logical_not(active))
-    def _():
-        run(False)
-
-
-def _temperature_changes_pallas(p, dt, has_ice, rhoa, flw, potT, Qa,
-                                shcoef, lhcoef, fswsfc, fswint,
-                                fswthrun, Sswabs, Iswabs, hilyr, hslyr,
-                                qin, Tin, qsn, Tsn, Tsf, Tbot, einit,
-                                interpret=False):
-    import os
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    nilyr, nslyr = p.nilyr, p.nslyr
-    ny, nx = Tsf.shape
-    dtype = Tsf.dtype
-    bh = int(os.environ.get("CICE4_THERMO_BH", "32"))
-    nb = -(-ny // bh)
-    nyp = nb * bh
-
-    def padr(a):
-        if nyp == ny:
-            return a
-        pad = [(0, 0)] * (a.ndim - 2) + [(0, nyp - ny), (0, 0)]
-        return jnp.pad(a, pad)
-
-    hice_f = has_ice.astype(dtype)
-    singles = dict(has_ice=hice_f, rhoa=rhoa, flw=flw, potT=potT, Qa=Qa,
-                   shcoef=shcoef, lhcoef=lhcoef, fswsfc=fswsfc,
-                   fswint=fswint, fswthrun=fswthrun, hilyr=hilyr,
-                   hslyr=hslyr, Tsf=Tsf, Tbot=Tbot, einit=einit)
-    # separate refs per input (the pipeline streams each directly;
-    # a single stacked operand cost an XLA-side 30-plane concat copy)
-    plane_in = [padr(singles[k]) for k in _TC_SINGLES]
-    layer_in = [padr(a) for a in (Sswabs, Iswabs, qin, Tin, qsn, Tsn)]
-    nout = len(_TC_OUT_SINGLES) + 2 * nslyr + 2 * nilyr \
-        + nslyr + nilyr + 1
-
-    def pspec(nl=None):
-        if nl is None:
-            return pl.BlockSpec((bh, nx), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.BlockSpec((nl, bh, nx), lambda i: (0, i, 0),
-                            memory_space=pltpu.VMEM)
-
-    out = pl.pallas_call(
-        partial(_tc_kernel, p, dt, nslyr, nilyr),
-        grid=(nb,),
-        in_specs=[pspec() for _ in plane_in]
-        + [pspec(a.shape[0]) for a in layer_in],
-        out_specs=pspec(nout),
-        out_shape=jax.ShapeDtypeStruct((nout, nyp, nx), dtype),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=128 * 1024 * 1024),
-        interpret=interpret or jax.default_backend() != "tpu",
-    )(*plane_in, *layer_in)
-
-    niter_plane = out[-1, :ny]
-    out = out[:-1, :ny]
-    res = {k: out[i] for i, k in enumerate(_TC_OUT_SINGLES)}
-    o = len(_TC_OUT_SINGLES)
-    res["Tsn"] = out[o:o + nslyr]; o += nslyr     # noqa: E702
-    res["Tin"] = out[o:o + nilyr]; o += nilyr     # noqa: E702
-    res["qsn"] = out[o:o + nslyr]; o += nslyr     # noqa: E702
-    res["qin"] = out[o:o + nilyr]; o += nilyr     # noqa: E702
-    res["Sswabs"] = out[o:o + nslyr]; o += nslyr  # noqa: E702
-    res["Iswabs"] = out[o:o + nilyr]; o += nilyr  # noqa: E702
-    res["converged"] = res["converged"] != 0.0
-    res["why"] = res["why"].astype(jnp.int32)
-    res["niter"] = jnp.max(niter_plane).astype(jnp.int32)
-    return res
 
 
 def temperature_changes_know_tsfc(p: ThermoParams, dt, has_ice,
@@ -908,6 +734,7 @@ def temperature_changes_know_tsfc(p: ThermoParams, dt, has_ice,
         out["converged"] = jnp.where(active, ~newly_unconv,
                                      carry["converged"])
         out["all_conv"] = jnp.all(out["converged"] | ~has_ice)
+        out["niter_cell"] = carry["niter_cell"] + active.astype(jnp.int32)
         out["niter"] = carry["niter"] + 1
         return out
 
@@ -915,6 +742,7 @@ def temperature_changes_know_tsfc(p: ThermoParams, dt, has_ice,
         Tsn=Tsn, Tin=Tin, qsn=qsn, qin=qin, kh=kh,
         Ti1_prev=Tin[0], dTi1_prev=zero, dq_col=zero,
         converged=jnp.zeros_like(has_ice), fcondbot=zero,
+        niter_cell=jnp.zeros_like(has_ice, jnp.int32),
         all_conv=jnp.asarray(False), niter=jnp.asarray(0),
     )
     res = jax.lax.while_loop(
@@ -926,6 +754,7 @@ def temperature_changes_know_tsfc(p: ThermoParams, dt, has_ice,
         fswsfc=fswsfc, fswint=fswint, Sswabs=Sswabs, Iswabs=Iswabs,
         dq_flux=res["dq_col"] / dt,
         converged=res["converged"], niter=res["niter"],
+        niter_cell=res["niter_cell"],
     )
 
 
@@ -1055,19 +884,22 @@ def zerolayer_temperature(p: ThermoParams, dt, has_ice,
                              c["flwoutn"])
         out["converged"] = jnp.where(active, ~unconv, c["converged"])
         out["all_conv"] = jnp.all(out["converged"] | ~has_ice)
+        out["niter_cell"] = c["niter_cell"] + active.astype(jnp.int32)
         out["niter"] = c["niter"] + 1
         return out
 
     c0 = dict(Tsf=Tsf, dTsf_prev=zero, fsurfn=zero, fcondtopn=zero,
               fsensn=zero, flatn=zero, flwoutn=zero,
               converged=jnp.zeros_like(has_ice),
+              niter_cell=jnp.zeros_like(has_ice, jnp.int32),
               all_conv=jnp.asarray(False), niter=jnp.asarray(0))
     r = jax.lax.while_loop(cond, body, c0)
     fswabsn = fswsfc + fswthru
     return dict(Tsf=r["Tsf"], fsurfn=r["fsurfn"],
                 fcondtopn=r["fcondtopn"], fcondbot=r["fcondtopn"],
                 fsensn=r["fsensn"], flatn=r["flatn"],
-                flwoutn=r["flwoutn"], fswabsn=fswabsn, niter=r["niter"])
+                flwoutn=r["flwoutn"], fswabsn=fswabsn, niter=r["niter"],
+                niter_cell=r["niter_cell"])
 
 
 def thickness_changes(p: ThermoParams, dt, has_ice, hilyr, hslyr,
@@ -1328,7 +1160,8 @@ def thermo_vertical_category(p: ThermoParams, dt, aicen, vicen, vsnon,
                       fswabsn=kt["fswabsn"], fswsfc=kt["fswsfc"],
                       fswint=kt["fswint"], Sswabs=kt["Sswabs"],
                       Iswabs=kt["Iswabs"], converged=kt["converged"],
-                      dq_flux=kt["dq_flux"], niter=kt["niter"])
+                      dq_flux=kt["dq_flux"], niter=kt["niter"],
+                      niter_cell=kt["niter_cell"])
         else:
             # zero layer: fcondbot = fcondtopn (thermo_vertical:409-418)
             tc = dict(Tsf=Tsf, Tsn=Tsn, Tin=Tin, qsn=qsn, qin=qin,
@@ -1336,7 +1169,8 @@ def thermo_vertical_category(p: ThermoParams, dt, aicen, vicen, vsnon,
                       fswabsn=fswsfc + fswthrun, fswsfc=fswsfc,
                       fswint=jnp.zeros_like(fswsfc), Sswabs=Sswabs,
                       Iswabs=Iswabs, converged=jnp.ones_like(has_ice),
-                      niter=jnp.asarray(0))
+                      niter=jnp.asarray(0),
+                      niter_cell=jnp.zeros(has_ice.shape, jnp.int32))
         tc["fsurfn"] = jnp.where(has_ice, fsurfn_pre, 0.0)
         tc["fcondtopn"] = jnp.where(has_ice, fcondtopn_pre, 0.0)
         tc["flatn"] = jnp.where(has_ice, flatn_pre, 0.0)
@@ -1360,7 +1194,7 @@ def thermo_vertical_category(p: ThermoParams, dt, aicen, vicen, vsnon,
                   fswabsn=z["fswabsn"], fswsfc=fswsfc,
                   fswint=jnp.zeros_like(fswsfc), Sswabs=Sswabs,
                   Iswabs=Iswabs, converged=jnp.ones_like(has_ice),
-                  niter=z["niter"])
+                  niter=z["niter"], niter_cell=z["niter_cell"])
 
     # --- thickness changes -------------------------------------------------
     th = thickness_changes(p, dt, has_ice, hilyr, hslyr,
@@ -1416,5 +1250,6 @@ def thermo_vertical_category(p: ThermoParams, dt, aicen, vicen, vsnon,
         congel=m(th["congel"]), snoice=m(th["snoice"]),
         einit=m(einit), efinal=m(th["efinal"]),
         niter=tc["niter"],
+        niter_cell=tc["niter_cell"],
     )
     return state_out, flux_out

@@ -3,11 +3,11 @@
 The reference implements halos as explicit MPI message schedules over a
 block decomposition (``mpi/ice_boundary.F90:153-1417``: `ice_HaloCreate`
 precomputes send/recv lists, `ice_HaloUpdate` packs/sends/unpacks and
-applies the tripole fold).  On TPU none of that machinery exists as
-user code: fields are dense global ``(..., ny, nx)`` arrays sharded over
-a device mesh, stencil neighbor access is written in global view with
+applies the tripole fold).  Here none of that machinery exists as user
+code: fields are dense global ``(..., ny, nx)`` arrays sharded over a
+device mesh, stencil neighbor access is written in global view with
 ``jnp.roll``/slicing, and XLA's SPMD partitioner inserts the actual
-ICI collective-permutes.  What remains of "halo logic" is purely the
+collective-permutes (NCCL over NVLink between GPUs).  What remains of "halo logic" is purely the
 *physical* boundary condition of the global domain, implemented here:
 
 * ``cyclic``   — wraparound (roll is already correct)

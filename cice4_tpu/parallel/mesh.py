@@ -1,12 +1,15 @@
 """Device mesh construction and sharding specs for the model state.
 
-The TPU-native replacement for the reference's block decomposition +
-MPI rank layout (``ice_blocks.F90`` / ``ice_distribution.F90``): one 2D
+The replacement for the reference's block decomposition + MPI rank
+layout (``ice_blocks.F90`` / ``ice_distribution.F90``): one 2D
 `jax.sharding.Mesh` over ('y', 'x'); every field is sharded over its
 trailing two (spatial) axes with category/layer axes replicated.  XLA's
-SPMD partitioner inserts all halo communication (collective-permutes
-for the `jnp.roll` stencils) and reductions — there is no hand-written
-message schedule (`ice_HaloCreate`) to maintain.
+SPMD partitioner inserts all halo communication (NCCL
+collective-permutes for the `jnp.roll` stencils on GPUs) and
+reductions — there is no hand-written message schedule
+(`ice_HaloCreate`) to maintain.  The k-halo fast paths
+(`ops/evp_sharded.py`, `remap.transport_remap_sharded`) replace the
+per-roll permutes with one batched exchange.
 """
 
 from __future__ import annotations
@@ -20,12 +23,14 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 def init_distributed():
     """Multi-host initialization behind a flag
-    (``jax.distributed.initialize``; the TPU-native analogue of
+    (``jax.distributed.initialize``; the analogue of
     `init_communicate`, ``mpi/ice_communicate.F90:74-141``).
 
-    Set CICE4_DISTRIBUTED=1 (with the usual JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID env, or TPU-pod auto-detect) to
-    join a multi-host mesh; no-op otherwise and safe to call twice.
+    Set CICE4_DISTRIBUTED=1 together with CICE4_COORDINATOR
+    (``host:port``), CICE4_NUM_PROCESSES and CICE4_PROCESS_ID to join
+    a multi-process mesh (one process per GPU or per host); without
+    CICE4_COORDINATOR JAX's own cluster auto-detection is tried.
+    No-op otherwise and safe to call twice.
     """
     import os
     if not os.environ.get("CICE4_DISTRIBUTED"):
@@ -49,7 +54,9 @@ def init_distributed():
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     """Build a near-square (py, px) mesh from the available devices
     (the analogue of `proc_decomposition`, ``ice_distribution.F90:
-    228-377``, with `processor_shape = 'square-ice'`)."""
+    228-377``, with `processor_shape = 'square-ice'`).  GPUs joined
+    all to all by NVLink have no torus to follow, so the shape follows
+    the halo perimeter alone (2x2 for four cards)."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:

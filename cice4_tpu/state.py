@@ -8,7 +8,7 @@ ice-ocean stress) and the 12 EVP stress fields of
 ``ice_restart.F90:176-246`` writes lives here.
 
 Array layout: category/layer axes lead, spatial ``(ny, nx)`` axes are
-minor so the VPU lane dimension is contiguous x.
+minor so x is the contiguous dimension.
 
 * ``aicen/vicen/vsnon/tsfcn``: ``(ncat, ny, nx)``
 * ``eicen``: ``(ncat, nilyr, ny, nx)`` — layer energy of melting (J/m^2,

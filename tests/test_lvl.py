@@ -88,7 +88,7 @@ def test_level_tracers_ride_transport():
     state = state.replace(
         uvel=0.2 * jnp.sin(6.283 * x) * jnp.ones((grid.ny, 1))
         * grid.umask)
-    s1, _ = transport_remap(state, grid, 3600.0, use_pallas=False)
+    s1, _ = transport_remap(state, grid, 3600.0)
     # conserved: total level area unchanged by pure transport
     b = float(jnp.sum(state.aicen * state.trcrn["alvl"] * grid.tarea))
     a = float(jnp.sum(s1.aicen * s1.trcrn["alvl"] * grid.tarea))

@@ -1,6 +1,6 @@
 """First REAL multi-process execution (VERDICT r4 item 5): two
 localhost processes, 4 virtual CPU devices each, joined through
-`jax.distributed` — the TPU-native analogue of the reference's
+`jax.distributed` — the analogue of the reference's
 `init_communicate` MPI world (``mpi/ice_communicate.F90:74-141``).
 
 Covers: `init_distributed`, a full sharded model step over the

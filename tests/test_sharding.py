@@ -1,6 +1,6 @@
 """Decomposition invariance: 1 device vs 8-device mesh.
 
-The TPU-world analogue of the reference's serial/mpi twin backends
+The analogue of the reference's serial/mpi twin backends
 (SURVEY §4.1/§4.5).  Phase-level programs reproduce the single-device
 result to scale-relative roundoff (~1e-13): GSPMD partitioning of the
 stencils is exact up to FMA/reassociation differences between the two

@@ -218,20 +218,16 @@ def test_full_step_calc_tsfc_false():
     assert np.isfinite(np.asarray(s.tsfcn)).all()
 
 
-def test_pallas_thermo_matches_jnp(tp):
-    """The row-blocked Pallas temperature solve (interpret mode) is
-    numerically identical to the whole-grid while_loop path, including
-    ice-free blocks (skipped) and blocks with mixed convergence
-    speed."""
-    p, itd = tp
-    ny, nx = 64, 128
+def _banded_columns(p, ny=64, nx=128):
+    """Random f64 column inputs with ice in two row bands (rows < 12 and
+    >= 52, 80% of cells) and an ice-free middle; the argument tuple of
+    `temperature_changes`."""
     rng = np.random.RandomState(3)
     f64 = jnp.float64
 
     def f(lo, hi, shape=(ny, nx)):
         return jnp.asarray(rng.uniform(lo, hi, shape), f64)
 
-    # ice only in two row bands; the middle blocks must be skipped
     row = np.arange(ny)[:, None] * np.ones((1, nx))
     has_ice = jnp.asarray(((row < 12) | (row >= 52))
                           & (rng.rand(ny, nx) > 0.2))
@@ -246,7 +242,7 @@ def test_pallas_thermo_matches_jnp(tp):
     Tsn = jnp.broadcast_to(jnp.minimum(Tsf, 0.0), (p.nslyr, ny, nx))
     qsn = tv.qsn_of_tsn(Tsn)
     fswsfc, fswint = f(0.0, 60.0), f(0.0, 30.0)
-    args = (p, 3600.0, has_ice, f(1.1, 1.4), f(150.0, 300.0),
+    return (p, 3600.0, has_ice, f(1.1, 1.4), f(150.0, 300.0),
             f(240.0, 275.0), f(1e-4, 4e-3), f(5.0, 25.0), f(2.0, 15.0),
             fswsfc, fswint, f(0.0, 10.0),
             jnp.zeros((p.nslyr, ny, nx), f64) + 1.0,
@@ -255,15 +251,59 @@ def test_pallas_thermo_matches_jnp(tp):
             jnp.full((ny, nx), Tf, f64),
             jnp.sum(qsn * hslyr[None], 0) + jnp.sum(qin * hilyr[None], 0))
 
-    ref = tv._temperature_changes_core(*args)
-    out = tv._temperature_changes_pallas(*args[:1] + args[1:],
-                                         interpret=True)
-    for key in ("Tsf", "Tsn", "Tin", "qsn", "qin", "fsurfn",
-                "fcondtopn", "fcondbot", "fsensn", "flatn", "flwoutn",
-                "fswabsn", "fswsfc", "fswint", "Sswabs", "Iswabs",
-                "dq_flux"):
-        np.testing.assert_allclose(np.asarray(out[key]),
-                                   np.asarray(ref[key]),
-                                   rtol=1e-12, atol=1e-12, err_msg=key)
-    np.testing.assert_array_equal(np.asarray(out["converged"]),
-                                  np.asarray(ref["converged"]))
+
+def test_temperature_solve_is_per_cell(tp):
+    """Each cell's Newton solve depends on that cell alone: solving the
+    whole grid (which iterates until the slowest cell converges) and
+    solving one ice band on its own give every cell the same result
+    and the same iteration count.  Any later solver that gates or
+    compacts ice cells relies on this."""
+    p, itd = tp
+    ny = 64
+    args = _banded_columns(p, ny)
+
+    whole = tv.temperature_changes(*args)
+    assert int(whole["niter"]) == int(np.max(np.asarray(whole["niter_cell"])))
+    assert int(whole["niter"]) > 1
+
+    def rows(x, lo, hi):
+        if isinstance(x, jax.Array) and x.ndim >= 2 and x.shape[-2] == ny:
+            return x[..., lo:hi, :]
+        return x
+
+    for lo, hi in ((0, 12), (52, 64)):
+        band = tv.temperature_changes(*[rows(x, lo, hi) for x in args])
+        for key in ("Tsf", "Tsn", "Tin", "qsn", "qin", "fsurfn",
+                    "fcondtopn", "fcondbot", "fsensn", "flatn", "flwoutn",
+                    "fswabsn", "fswsfc", "fswint", "Sswabs", "Iswabs",
+                    "dq_flux"):
+            np.testing.assert_allclose(np.asarray(band[key]),
+                                       np.asarray(rows(whole[key], lo, hi)),
+                                       rtol=1e-12, atol=1e-12, err_msg=key)
+        for key in ("converged", "niter_cell"):
+            np.testing.assert_array_equal(
+                np.asarray(band[key]), np.asarray(rows(whole[key], lo, hi)))
+
+
+@pytest.mark.parametrize("solver", ["zero_layer", "know_tsfc"])
+def test_other_solvers_count_newton_iterations_per_cell(tp, solver):
+    """The zero-layer and prescribed-flux (calc_Tsfc=F) solves report
+    per-cell iteration counts like the main solve: none off the ice,
+    and the global count is the slowest cell's."""
+    p, itd = tp
+    (_, dt, has_ice, rhoa, flw, potT, Qa, shcoef, lhcoef, fswsfc, fswint,
+     fswthru, Sswabs, Iswabs, hilyr, hslyr, qin, Tin, qsn, Tsn, Tsf, Tbot,
+     einit) = _banded_columns(p)
+    if solver == "zero_layer":
+        out = tv.zerolayer_temperature(p, dt, has_ice, rhoa, flw, potT, Qa,
+                                       shcoef, lhcoef, fswsfc, fswthru,
+                                       hilyr, hslyr, Tsf, Tbot)
+    else:
+        fcondtopn = jnp.where(has_ice, -20.0, 0.0)
+        out = tv.temperature_changes_know_tsfc(
+            p, dt, has_ice, fcondtopn, fswsfc, fswint, fswthru, Sswabs,
+            Iswabs, hilyr, hslyr, qin, Tin, qsn, Tsn, Tbot, einit)
+    nc = np.asarray(out["niter_cell"])
+    assert nc.shape == has_ice.shape
+    assert not nc[~np.asarray(has_ice)].any()
+    assert int(out["niter"]) == int(nc.max()) >= 1

@@ -4,8 +4,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.cache/cice4_tpu_xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from cice4_tpu.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 from cice4_tpu import constants as cn

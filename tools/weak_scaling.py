@@ -1,15 +1,13 @@
 """Weak-scaling measurement on the virtual CPU device mesh.
 
 The reference's scaling story is MPI ranks over blocks (BASELINE.md:
->=85% weak-scaling target); the TPU-native analogue is spatial
-sharding over a (y, x) mesh.  Real multi-chip hardware is not
-available in this environment, so this harness measures the GSPMD
-program on an N-virtual-device CPU mesh: the domain grows with the
+>=85% weak-scaling target); the analogue here is spatial sharding
+over a (y, x) mesh.  This harness measures the GSPMD program on an
+N-virtual-device CPU mesh: the domain grows with the
 device count (fixed work per device), and efficiency = T(1) / T(N).
 
-CPU timings are rough (no ICI; collectives are memcpys), but the run
-validates that the sharded program's collective structure scales, and
-the harness is the one that runs unchanged on a real TPU slice.
+CPU timings are rough (collectives are memcpys), but the run
+validates that the sharded program's collective structure scales.
 
 Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        JAX_PLATFORMS=cpu python tools/weak_scaling.py
@@ -31,9 +29,8 @@ if "host_platform_device_count" not in flags:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/cice4_tpu_xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from cice4_tpu.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
 import jax.numpy as jnp
 
